@@ -1,11 +1,11 @@
-"""Per-component cost breakdown of one SDXL UNet step on TPU.
+"""Per-component cost breakdown of one SDXL UNet step on the GPU.
 
-Slope-measures each building block (resnet / transformer stack / conv / up-
+Times each building block (resnet / transformer stack / conv / up-
 and downsample) at its real SDXL shape and multiplies by its occurrence count,
 giving an additive model of the 1024x1024 step. Points the optimization effort
 at the biggest bucket instead of guessing.
 
-    python benchmarks/breakdown.py [reference|pallas]
+    python benchmarks/breakdown.py [platform|reference]
 """
 
 import pathlib
@@ -16,17 +16,16 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 import numpy as np
 
 
-def main(backend="pallas"):
+def main(backend="platform"):
     import jax
     import jax.numpy as jnp
 
-    import stabletriton_tpu.kernels  # noqa: F401
-    from stabletriton_tpu import ops
-    from stabletriton_tpu.compile import CompileConfig, resolve_binding
-    from stabletriton_tpu.models.unet import (
+    from stabletriton_jax import ops
+    from stabletriton_jax.compile import CompileConfig, resolve_binding
+    from stabletriton_jax.models.unet import (
         _resnet, _transformer2d, init_unet_params, sdxl_base_unet_config,
     )
-    from stabletriton_tpu.runtime.profiling import bench_fn
+    from stabletriton_jax.runtime.profiling import bench_fn
 
     cfg = sdxl_base_unet_config()
     params = init_unet_params(cfg, 0, dtype=jnp.bfloat16)
@@ -114,4 +113,4 @@ def main(backend="pallas"):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1] if len(sys.argv) > 1 else "pallas")
+    main(sys.argv[1] if len(sys.argv) > 1 else "platform")

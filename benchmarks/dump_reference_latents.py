@@ -1,13 +1,13 @@
 """Dump per-step Diffusers SDXL latents as the fidelity-gate reference.
 
 Run this wherever stock Diffusers runs (any GPU/CPU box with torch+diffusers —
-this framework's TPU host does not need it):
+this framework's own host does not need it):
 
     python benchmarks/dump_reference_latents.py /path/to/sdxl out.npz \
         --prompt "a photo of an astronaut" --steps 30 --size 1024
 
 It saves everything benchmarks/fidelity.py needs to replay the identical
-denoise trajectory on TPU: the initial noise, the encoder outputs (so CLIP
+denoise trajectory here: the initial noise, the encoder outputs (so CLIP
 differences don't confound the UNet gate), and the latents after every
 scheduler step. The fidelity gate (BASELINE.md) is per-step latent MSE < 1e-3.
 """

@@ -23,8 +23,8 @@ import numpy as np
 def run_gate(pipe, ref, *, backend_label="", tol=1e-3) -> bool:
     import jax.numpy as jnp
 
-    from stabletriton_tpu.compile import compile_unet
-    from stabletriton_tpu.runtime import scheduler as sched
+    from stabletriton_jax.compile import compile_unet
+    from stabletriton_jax.runtime import scheduler as sched
 
     steps = int(ref["steps"])
     guidance = float(ref["guidance"])
@@ -75,13 +75,13 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("checkpoint")
     ap.add_argument("reference_npz")
-    ap.add_argument("--backend", default="pallas", choices=["pallas", "reference"])
+    ap.add_argument("--backend", default="platform", choices=["platform", "reference"])
     ap.add_argument("--dtype", default="bfloat16")
     ap.add_argument("--tol", type=float, default=1e-3)
     args = ap.parse_args()
 
-    from stabletriton_tpu.compile import CompileConfig
-    from stabletriton_tpu.io.pretrained import load_sdxl
+    from stabletriton_jax.compile import CompileConfig
+    from stabletriton_jax.io.pretrained import load_sdxl
 
     pipe, _, _ = load_sdxl(
         args.checkpoint,

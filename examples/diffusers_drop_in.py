@@ -1,6 +1,6 @@
 """Diffusers drop-in example — analog of the reference's headline demo
 (reference ``implementations/Diffusers/load_sdxl_pipeline.py``): load the
-stock SDXL pipeline with torch, swap its UNet for the TPU-compiled one, and
+stock SDXL pipeline with torch, swap its UNet for the JAX-compiled one, and
 run the two-generation measurement protocol (first = warm-up/compile,
 second = measured).
 
@@ -17,12 +17,12 @@ def main():
     import torch
     from diffusers import StableDiffusionXLPipeline
 
-    from stabletriton_tpu import CompileConfig
-    from stabletriton_tpu.frontends.diffusers import compile as st_compile
+    from stabletriton_jax import CompileConfig
+    from stabletriton_jax.frontends.diffusers import compile as st_compile
 
     pipe = StableDiffusionXLPipeline.from_pretrained(MODEL, use_safetensors=True)
     # the one-call splice (the reference's optimize_model analog)
-    pipe.unet = st_compile(pipe.unet, CompileConfig(backend="pallas", dtype="bfloat16"))
+    pipe.unet = st_compile(pipe.unet, CompileConfig(dtype="bfloat16"))
 
     prompt = "a photo of an astronaut riding a horse on mars"
     t0 = time.perf_counter()

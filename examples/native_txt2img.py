@@ -20,16 +20,16 @@ def main():
         return 1
     root, prompts = sys.argv[1], sys.argv[2:]
 
-    from stabletriton_tpu import CompileConfig
-    from stabletriton_tpu.io.pretrained import load_sdxl
-    from stabletriton_tpu.io.tokenizer import sdxl_tokenize
-    from stabletriton_tpu.native import save_png
+    from stabletriton_jax import CompileConfig
+    from stabletriton_jax.io.pretrained import load_sdxl
+    from stabletriton_jax.io.tokenizer import sdxl_tokenize
+    from stabletriton_jax.native import save_png
 
     import jax.numpy as jnp
     import numpy as np
 
     pipe, tok1, tok2 = load_sdxl(
-        root, compile_config=CompileConfig(backend="pallas", dtype="bfloat16")
+        root, compile_config=CompileConfig(dtype="bfloat16")
     )
     ids1, ids2 = sdxl_tokenize(tok1, tok2, prompts)
 

@@ -17,13 +17,13 @@ def main():
         return 1
     root = sys.argv[1]
 
-    from stabletriton_tpu import CompileConfig
-    from stabletriton_tpu.io.pretrained import load_sdxl
-    from stabletriton_tpu.native import save_png
-    from stabletriton_tpu.runtime.serving import Request, ServingEngine
+    from stabletriton_jax import CompileConfig
+    from stabletriton_jax.io.pretrained import load_sdxl
+    from stabletriton_jax.native import save_png
+    from stabletriton_jax.runtime.serving import Request, ServingEngine
 
     pipe, tok1, tok2 = load_sdxl(
-        root, compile_config=CompileConfig(backend="pallas", dtype="bfloat16")
+        root, compile_config=CompileConfig(dtype="bfloat16")
     )
     engine = ServingEngine(pipe, tok1, tok2, max_wait_s=0.2)
 

@@ -2,12 +2,12 @@
 the reference's non-functional sgm driver (reference
 ``implementations/sgm_/example.py:1-20``): load Stability's
 ``SamplingPipeline`` from a single-file SDXL checkpoint, swap the UNet inside
-its DiffusionEngine for the TPU-compiled one, and sample — sgm's own
+its DiffusionEngine for the JAX-compiled one, and sample — sgm's own
 conditioner, EDM sampler loop, and VAE keep running untouched in torch.
 
 Requires the external ``sgm`` package + torch + a checkpoint (none bundled);
 the same splice works on an AUTOMATIC1111 ``sd_model`` (same CompVis UNet
-convention). For whole-loop TPU throughput load the same checkpoint natively
+convention). For whole-loop throughput load the same checkpoint natively
 instead: ``io.single_file.load_single_file`` + ``runtime/pipeline.py``
 (see native_txt2img.py).
 """
@@ -25,15 +25,15 @@ def main():
         SamplingPipeline,
     )
 
-    from stabletriton_tpu import CompileConfig
-    from stabletriton_tpu.frontends.sgm import splice
+    from stabletriton_jax import CompileConfig
+    from stabletriton_jax.frontends.sgm import splice
 
     pipeline = SamplingPipeline(
         ModelArchitecture("stable-diffusion-xl-v1-base", None), CKPT, CONFIG
     )
     # the one-call splice: pipeline.model (DiffusionEngine) .model
-    # (OpenAIWrapper) .diffusion_model now runs on TPU
-    splice(pipeline, compile_config=CompileConfig(backend="pallas",
+    # (OpenAIWrapper) .diffusion_model now runs through JAX
+    splice(pipeline, compile_config=CompileConfig(
                                                   dtype="bfloat16"))
 
     prompt = "a professional photograph of an astronaut riding a pig"

@@ -1,11 +1,11 @@
 // Checkpoint ingestion fast path: bf16 widening and layout transposes.
 //
-// Role: the native side of stabletriton_tpu/io — the reference delegated all
+// Role: the native side of stabletriton_jax/io — the reference delegated all
 // native-code work to external deps (torch, safetensors-rust; SURVEY.md §2.6),
 // this framework ships its own. A 2.57B-param SDXL checkpoint crosses this
 // code once at load: widen bf16 -> f32 and convert torch layouts
 // ((out,in) -> (in,out) 2D transpose, OIHW -> HWIO 4D permute) into the
-// TPU-friendly layout the models consume.
+// channels-last layout the models consume.
 //
 // C ABI only (consumed via ctypes). Threaded over the largest axis.
 
@@ -102,7 +102,7 @@ void st_transpose_2d(const float* in, float* out, int64_t rows, int64_t cols) {
   });
 }
 
-// torch conv OIHW -> TPU HWIO.
+// torch conv OIHW -> HWIO.
 void st_oihw_to_hwio(const float* in, float* out, int64_t O, int64_t I, int64_t H,
                      int64_t W) {
   parallel_for(static_cast<size_t>(O), 8, [&](size_t lo, size_t hi) {

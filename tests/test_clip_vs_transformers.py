@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from stabletriton_tpu.io.torch_ingest import state_dict_to_params
-from stabletriton_tpu.models import clip as clip_mod
+from stabletriton_jax.io.torch_ingest import state_dict_to_params
+from stabletriton_jax.models import clip as clip_mod
 
 transformers = pytest.importorskip("transformers")
 

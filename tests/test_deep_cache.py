@@ -12,15 +12,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stabletriton_tpu.models.unet import (
+from stabletriton_jax.models.unet import (
     deep_cache_shape,
     init_unet_params,
     tiny_unet_config,
     unet_apply,
     unet_apply_shallow,
 )
-from stabletriton_tpu.runtime import scheduler as sched
-from stabletriton_tpu.runtime.denoise import make_denoise_loop
+from stabletriton_jax.runtime import scheduler as sched
+from stabletriton_jax.runtime.denoise import make_denoise_loop
 
 
 def _tiny_inputs(b=2, hw=16, seed=0):
@@ -53,7 +53,7 @@ def test_shallow_parity_with_full_pass():
 def test_shallow_parity_depth2():
     """cache_depth=2 on a 3-level UNet: the split point moves one level
     deeper (shallow pass keeps the middle level's attention live)."""
-    from stabletriton_tpu.models.unet import UNetConfig
+    from stabletriton_jax.models.unet import UNetConfig
 
     cfg = UNetConfig(
         block_out_channels=(32, 48, 64),
@@ -88,7 +88,7 @@ def test_shallow_parity_depth2():
 
 def test_txt2img_deep_cache_tuple_form():
     """deep_cache=(N, 1) is the same knob as deep_cache=N (shared program)."""
-    from stabletriton_tpu.runtime.pipeline import make_tiny_pipeline
+    from stabletriton_jax.runtime.pipeline import make_tiny_pipeline
 
     pipe = make_tiny_pipeline()
     s = pipe.clip_config.max_position_embeddings
@@ -257,7 +257,7 @@ def test_deep_cache_guidance_interval_every_solver(solver):
     """The composed knobs through SDXLPipeline for every solver: an
     all-covering window + interval=1 equals the exact path; a real window +
     interval=2 runs, differs, and stays finite."""
-    from stabletriton_tpu.runtime.pipeline import make_tiny_pipeline
+    from stabletriton_jax.runtime.pipeline import make_tiny_pipeline
 
     pipe = make_tiny_pipeline()
     s = pipe.clip_config.max_position_embeddings
@@ -281,7 +281,7 @@ def test_deep_cache_guidance_interval_every_solver(solver):
 def test_txt2img_deep_cache():
     """End-to-end through SDXLPipeline: runs, differs from the exact path,
     stays finite, and composes with no-CFG sampling."""
-    from stabletriton_tpu.runtime.pipeline import make_tiny_pipeline
+    from stabletriton_jax.runtime.pipeline import make_tiny_pipeline
 
     pipe = make_tiny_pipeline()
     s = pipe.clip_config.max_position_embeddings
@@ -314,7 +314,7 @@ def test_deep_cache_every_solver(solver):
     """interval=1 must equal the exact path for EVERY solver — this pins the
     cache-carry threading (incl. heun's double eval sharing the step's
     branch); interval=2 must run, differ, and stay finite."""
-    from stabletriton_tpu.runtime.pipeline import make_tiny_pipeline
+    from stabletriton_jax.runtime.pipeline import make_tiny_pipeline
 
     pipe = make_tiny_pipeline()
     s = pipe.clip_config.max_position_embeddings
@@ -357,7 +357,7 @@ def test_no_cfg_hoist_every_solver(solver):
 
 def test_img2img_deep_cache():
     """The knob also threads through the img2img/refiner surface."""
-    from stabletriton_tpu.runtime.pipeline import make_tiny_refiner_pipeline
+    from stabletriton_jax.runtime.pipeline import make_tiny_refiner_pipeline
 
     refiner = make_tiny_refiner_pipeline()
     rng = np.random.default_rng(0)

@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stabletriton_tpu.kernels.fft_conv import fft_conv1d, fft_conv2d
+from stabletriton_jax.kernels.fft_conv import fft_conv1d, fft_conv2d
 
 
 @pytest.mark.parametrize("n,k", [(64, 5), (256, 33), (1024, 257)])

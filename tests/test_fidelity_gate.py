@@ -1,5 +1,5 @@
 """Self-contained exercise of the fidelity gate machinery (CPU, tiny model):
-record a trajectory with the reference binding, gate the pallas binding
+record a trajectory with the reference binding, gate the platform binding
 against it — proving the harness catches/passes numerics end to end."""
 
 import importlib.util
@@ -9,9 +9,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stabletriton_tpu.compile import CompileConfig, compile_unet
-from stabletriton_tpu.runtime import scheduler as sched
-from stabletriton_tpu.runtime.pipeline import make_tiny_pipeline
+from stabletriton_jax.compile import CompileConfig, compile_unet
+from stabletriton_jax.runtime import scheduler as sched
+from stabletriton_jax.runtime.pipeline import make_tiny_pipeline
 
 
 def _load_fidelity():
@@ -59,11 +59,11 @@ def _record_reference(pipe, steps=3, size=32, guidance=5.0, seed=0):
     }
 
 
-def test_gate_passes_for_pallas_binding():
-    pipe = make_tiny_pipeline(CompileConfig(backend="pallas", dtype="float32"))
+def test_gate_passes_for_platform_binding():
+    pipe = make_tiny_pipeline(CompileConfig(dtype="float32"))
     ref = _record_reference(pipe)
     fidelity = _load_fidelity()
-    assert fidelity.run_gate(pipe, ref, backend_label="pallas", tol=1e-3)
+    assert fidelity.run_gate(pipe, ref, backend_label="platform", tol=1e-3)
 
 
 def test_gate_fails_for_wrong_weights():

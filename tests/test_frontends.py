@@ -3,8 +3,8 @@
 import numpy as np
 import torch
 
-from stabletriton_tpu.compile import CompileConfig
-from stabletriton_tpu.models.unet import (
+from stabletriton_jax.compile import CompileConfig
+from stabletriton_jax.models.unet import (
     init_unet_params,
     tiny_unet_config,
     unet_apply,
@@ -51,8 +51,8 @@ class FakeTorchUNet:
 def test_diffusers_compile_drop_in_matches_native():
     """frontends.diffusers.compile(torch_unet) must equal unet_apply on the
     ingested params — the whole capture+convert+execute chain, end to end."""
-    from stabletriton_tpu.frontends import diffusers as fe
-    from stabletriton_tpu.io.torch_ingest import state_dict_to_params
+    from stabletriton_jax.frontends import diffusers as fe
+    from stabletriton_jax.io.torch_ingest import state_dict_to_params
 
     import jax.numpy as jnp
 
@@ -95,7 +95,7 @@ def test_diffusers_compile_drop_in_matches_native():
 
 
 def test_diffusers_wrapper_return_dict_false():
-    from stabletriton_tpu.frontends import diffusers as fe
+    from stabletriton_jax.frontends import diffusers as fe
 
     cfg = tiny_unet_config()
     compiled = fe.compile(FakeTorchUNet(cfg), CompileConfig(backend="reference", dtype="float32"))
@@ -114,7 +114,7 @@ def test_diffusers_drop_in_deep_cache():
     """compile(unet, deep_cache=N) on the step-at-a-time surface: the first
     (full) step matches the exact wrapper; cached steps reuse the carried
     deep feature; a timestep jump back up resets (new generation)."""
-    from stabletriton_tpu.frontends import diffusers as fe
+    from stabletriton_jax.frontends import diffusers as fe
 
     cfg = tiny_unet_config()
     fake = FakeTorchUNet(cfg)
@@ -152,8 +152,8 @@ def test_diffusers_deep_cache_multi_call_per_step():
     timestep (ComfyUI's two-pass CFG): the step index must advance on
     timestep CHANGE, and each call position within a step must carry its own
     cache slot — never splicing one stream's cache into the other."""
-    from stabletriton_tpu.compile import compile_unet_deepcache
-    from stabletriton_tpu.frontends import diffusers as fe
+    from stabletriton_jax.compile import compile_unet_deepcache
+    from stabletriton_jax.frontends import diffusers as fe
 
     cfg = tiny_unet_config()
     fake = FakeTorchUNet(cfg)
@@ -208,11 +208,11 @@ def test_diffusers_deep_cache_multi_call_per_step():
 
 
 def test_comfyui_node_registry_importable():
-    from stabletriton_tpu.frontends import comfyui
+    from stabletriton_jax.frontends import comfyui
 
     nodes, names = comfyui.register()
-    assert "StableTritonTPUCompile" in nodes
-    assert "StableTritonTPUTxt2Img" in nodes
+    assert "StableTritonCompile" in nodes
+    assert "StableTritonTxt2Img" in nodes
     assert set(names) == set(nodes)
     # INPUT_TYPES contracts exist without comfy installed
     for cls in nodes.values():
@@ -227,10 +227,10 @@ def test_comfyui_shim_sgm_y_convention_matches_native():
     fourier embedding itself from raw time_ids."""
     import jax.numpy as jnp
 
-    from stabletriton_tpu import ops
-    from stabletriton_tpu.frontends import diffusers as fe
-    from stabletriton_tpu.frontends.comfyui import _ComfyUNetShim
-    from stabletriton_tpu.io.torch_ingest import state_dict_to_params
+    from stabletriton_jax import ops
+    from stabletriton_jax.frontends import diffusers as fe
+    from stabletriton_jax.frontends.comfyui import _ComfyUNetShim
+    from stabletriton_jax.io.torch_ingest import state_dict_to_params
 
     cfg = tiny_unet_config()
     fake = FakeTorchUNet(cfg)
@@ -283,9 +283,9 @@ def test_sgm_splice_refiner_y_convention():
 
     import jax.numpy as jnp
 
-    from stabletriton_tpu import ops
-    from stabletriton_tpu.frontends import sgm as fe_sgm
-    from stabletriton_tpu.io.torch_ingest import state_dict_to_params
+    from stabletriton_jax import ops
+    from stabletriton_jax.frontends import sgm as fe_sgm
+    from stabletriton_jax.io.torch_ingest import state_dict_to_params
     from test_single_file import _RESNET_INV, _invert_unet_names
 
     cfg = dataclasses.replace(
@@ -365,7 +365,7 @@ def test_sgm_splice_refiner_y_convention():
 def test_sgm_splice_rejects_unrecognized_object():
     import pytest as _pytest
 
-    from stabletriton_tpu.frontends import sgm as fe_sgm
+    from stabletriton_jax.frontends import sgm as fe_sgm
 
     with _pytest.raises(ValueError, match="diffusion_model"):
         fe_sgm.splice(object())

@@ -19,11 +19,10 @@ def test_dryrun_multichip_8():
 def test_dryrun_multichip_bootstraps_like_the_driver():
     """Reproduce the driver's call environment: a fresh process with NO
     virtual-mesh env (1 visible device) imports the module and calls
-    dryrun_multichip(8) directly. Round 1 failed exactly here
-    (MULTICHIP_r01.json rc=1): the bootstrap lived only under __main__.
-    The fix self-bootstraps via a subprocess, so this must now pass."""
+    dryrun_multichip(8) directly. The bootstrap must not live only under
+    __main__: the function re-executes itself on a virtual CPU mesh."""
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
-    env["JAX_PLATFORMS"] = "cpu"  # no TPU from tests; still only 1 device
+    env["JAX_PLATFORMS"] = "cpu"  # only 1 device visible
     proc = subprocess.run(
         [sys.executable, "-c",
          "import __graft_entry__; __graft_entry__.dryrun_multichip(8); print('OK')"],

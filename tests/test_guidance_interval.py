@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stabletriton_tpu.runtime import scheduler as sched
-from stabletriton_tpu.runtime.denoise import make_denoise_loop
+from stabletriton_jax.runtime import scheduler as sched
+from stabletriton_jax.runtime.denoise import make_denoise_loop
 
 
 def _fake_unet(params, sample, t, ctx, text_embeds, time_ids):
@@ -96,7 +96,7 @@ def test_no_cfg_fast_path_semantics():
 
 def test_txt2img_no_cfg():
     """guidance_scale=1.0 end-to-end: single-branch UNet, valid output."""
-    from stabletriton_tpu.runtime.pipeline import make_tiny_pipeline
+    from stabletriton_jax.runtime.pipeline import make_tiny_pipeline
 
     pipe = make_tiny_pipeline()
     s = pipe.clip_config.max_position_embeddings
@@ -117,7 +117,7 @@ def test_txt2img_no_cfg():
 
 def test_txt2img_guidance_interval():
     """End-to-end: the knob threads through SDXLPipeline's cache + builder."""
-    from stabletriton_tpu.runtime.pipeline import make_tiny_pipeline
+    from stabletriton_jax.runtime.pipeline import make_tiny_pipeline
 
     pipe = make_tiny_pipeline()
     s = pipe.clip_config.max_position_embeddings

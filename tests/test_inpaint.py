@@ -4,11 +4,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stabletriton_tpu.compile import CompileConfig
-from stabletriton_tpu.models import clip as clip_mod
-from stabletriton_tpu.models import vae as vae_mod
-from stabletriton_tpu.models.unet import UNetConfig, init_unet_params
-from stabletriton_tpu.runtime.pipeline import SDXLPipeline, make_tiny_pipeline
+from stabletriton_jax.compile import CompileConfig
+from stabletriton_jax.models import clip as clip_mod
+from stabletriton_jax.models import vae as vae_mod
+from stabletriton_jax.models.unet import UNetConfig, init_unet_params
+from stabletriton_jax.runtime.pipeline import SDXLPipeline, make_tiny_pipeline
 
 
 def _tiny_inpaint_pipeline():

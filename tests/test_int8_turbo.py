@@ -8,14 +8,14 @@ quantize, exact paths remain for the rest, and the quantized UNet stays
 import jax.numpy as jnp
 import numpy as np
 
-from stabletriton_tpu.compile import (
+from stabletriton_jax.compile import (
     CompileConfig,
     compile_unet,
     fuse_attention_projections,
     quantize_linear_weights,
     resolve_binding,
 )
-from stabletriton_tpu.models.unet import init_unet_params, tiny_unet_config, unet_apply
+from stabletriton_jax.models.unet import init_unet_params, tiny_unet_config, unet_apply
 
 
 def test_quantize_selects_eligible_weights():
@@ -38,17 +38,17 @@ def test_quantize_selects_eligible_weights():
 
 
 def test_int8_binding_resolution():
-    binding = resolve_binding(CompileConfig(backend="pallas", quantize="int8"))
+    binding = resolve_binding(CompileConfig(quantize="int8"))
     assert binding["linear"] == "int8"
     binding = resolve_binding(CompileConfig(backend="reference", quantize="int8"))
     assert binding["linear"] == "int8"
-    binding = resolve_binding(CompileConfig(backend="pallas", quantize="int8_ff"))
+    binding = resolve_binding(CompileConfig(quantize="int8_ff"), platform="gpu")
     assert binding["linear"] == "int8"
 
 
 def test_quantize_ff_only_selects_geglu_ups():
-    """int8_ff quantizes ONLY the GEGLU up-projections — the sole shapes
-    where the v5e int8 MXU rate engages (scripts/int8_check.py)."""
+    """int8_ff quantizes ONLY the GEGLU up-projections, the widest GEMMs
+    (compile.quantize_linear_weights)."""
     cfg = tiny_unet_config()
     params = fuse_attention_projections(init_unet_params(cfg, 0))
     q = quantize_linear_weights(params, min_dim=16, ff_only=True)
@@ -59,7 +59,7 @@ def test_quantize_ff_only_selects_geglu_ups():
 
 
 def test_int8_linear_matches_dequant_reference():
-    from stabletriton_tpu.ops.reference import linear, linear_int8
+    from stabletriton_jax.ops.reference import linear, linear_int8
 
     rng = np.random.default_rng(0)
     w = jnp.asarray(rng.standard_normal((64, 96), dtype=np.float32) * 0.3)
@@ -82,7 +82,7 @@ def test_turbo_unet_close_to_float():
     """Full tiny-UNet forward, turbo vs exact: draft-quality bound (the output
     is a noise prediction with O(1) scale; relative error must stay small
     even though it exceeds the 1e-3 exact gate)."""
-    from stabletriton_tpu import ops
+    from stabletriton_jax import ops
 
     cfg = tiny_unet_config()
     params = fuse_attention_projections(init_unet_params(cfg, 0))
@@ -106,10 +106,10 @@ def test_turbo_unet_close_to_float():
 
 
 def test_turbo_pipeline_txt2img_runs():
-    from stabletriton_tpu.runtime.pipeline import make_tiny_pipeline
+    from stabletriton_jax.runtime.pipeline import make_tiny_pipeline
 
     pipe = make_tiny_pipeline(
-        CompileConfig(backend="pallas", dtype="float32", quantize="int8",
+        CompileConfig(dtype="float32", quantize="int8",
                       quantize_min_dim=16)
     )
     assert any(isinstance(v, tuple) for v in pipe.params["unet"].values())
@@ -122,7 +122,7 @@ def test_turbo_pipeline_txt2img_runs():
 
 
 def test_int8_conv_matches_dequant_reference():
-    from stabletriton_tpu.ops.reference import conv2d, conv2d_int8
+    from stabletriton_jax.ops.reference import conv2d, conv2d_int8
 
     rng = np.random.default_rng(2)
     w = jnp.asarray(rng.standard_normal((3, 3, 32, 48), dtype=np.float32) * 0.2)
@@ -155,7 +155,7 @@ def test_int8_conv_mode_selection():
 
 
 def test_turbo_conv_unet_close_to_float():
-    from stabletriton_tpu import ops
+    from stabletriton_jax import ops
 
     cfg = tiny_unet_config()
     params = fuse_attention_projections(init_unet_params(cfg, 0))

@@ -4,8 +4,8 @@ import numpy as np
 import pytest
 import torch
 
-from stabletriton_tpu.io import lora as lora_mod
-from stabletriton_tpu.io import safetensors_io as st
+from stabletriton_jax.io import lora as lora_mod
+from stabletriton_jax.io import safetensors_io as st
 
 
 def test_read_safetensors_roundtrip(tmp_path):
@@ -56,7 +56,7 @@ def test_validate_against_shapes_errors():
 def test_sdxl_checkpoint_shape_contract(tmp_path):
     """A synthetic checkpoint with torch-layout SDXL shapes must load into
     exactly the model's expected shape table (spot-checked subset)."""
-    from stabletriton_tpu.models.unet import sdxl_base_unet_config, unet_param_shapes
+    from stabletriton_jax.models.unet import sdxl_base_unet_config, unet_param_shapes
 
     expected = unet_param_shapes(sdxl_base_unet_config())
     subset = dict(list(sorted(expected.items()))[:40])

@@ -4,7 +4,7 @@ EXACT — the same ops.linear on the same dtype-cast context, just computed once
 
 Reference parity note: the reference re-ran its K/V projection GEMMs inside
 every CUDA-graph replay (the graph captures the whole forward —
-``optimizers/cuda/graphs.py``); this cache is a capability the TPU design adds
+``optimizers/cuda/graphs.py``); this cache is a capability this design adds
 on top, so the gate here is bit-equality against our own uncached step.
 """
 
@@ -13,13 +13,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stabletriton_tpu.compile import (
+from stabletriton_jax.compile import (
     CompileConfig,
     compile_unet,
     compile_unet_kv,
     fuse_attention_projections,
 )
-from stabletriton_tpu.models.unet import (
+from stabletriton_jax.models.unet import (
     init_unet_params,
     precompute_cross_kv,
     tiny_unet_config,
@@ -82,7 +82,7 @@ def test_partial_cache_without_context_raises():
 def test_time_cond_cache_matches_inline():
     """precompute_time_cond batched over T steps == the inline per-step
     time_emb_proj values, and the cached step reproduces the full forward."""
-    from stabletriton_tpu.models.unet import precompute_time_cond, resnet_keys
+    from stabletriton_jax.models.unet import precompute_time_cond, resnet_keys
 
     cfg = tiny_unet_config()
     params = init_unet_params(cfg, 0)
@@ -101,11 +101,10 @@ def test_time_cond_cache_matches_inline():
                                    atol=1e-6, rtol=1e-6)
 
 
-@pytest.mark.parametrize("backend", ["reference", "pallas"])
+@pytest.mark.parametrize("backend", ["reference", "platform"])
 def test_compile_unet_kv_matches_compile_unet(backend):
     """The (precompute, precompute_time, step) triple from compile_unet_kv
-    reproduces the single-call compile_unet under both bindings (pallas
-    kernels run interpreted on CPU)."""
+    reproduces the single-call compile_unet under both bindings."""
     cfg = tiny_unet_config()
     ccfg = CompileConfig(backend=backend, dtype="float32")
     params = init_unet_params(cfg, 0)
@@ -126,7 +125,7 @@ def test_compile_unet_kv_matches_compile_unet(backend):
 def test_pipeline_cached_loop_matches_uncached():
     """Whole tiny txt2img: both hoisting caches on vs fully inline must agree
     bitwise."""
-    from stabletriton_tpu.runtime.pipeline import make_tiny_pipeline
+    from stabletriton_jax.runtime.pipeline import make_tiny_pipeline
 
     ids = jnp.zeros((1, 16), jnp.int32)
     pipe_on = make_tiny_pipeline(
@@ -142,16 +141,45 @@ def test_pipeline_cached_loop_matches_uncached():
     np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
-def test_persistent_compile_cache_sets_config(tmp_path):
-    """enable_persistent_compile_cache points jax at the dir and creates it;
-    idempotent on repeat calls."""
-    from stabletriton_tpu.compile import enable_persistent_compile_cache
+@pytest.fixture
+def restore_cache_dir():
+    before = jax.config.jax_compilation_cache_dir
+    yield
+    jax.config.update("jax_compilation_cache_dir", before)
 
-    d = str(tmp_path / "xla-cache")
-    got = enable_persistent_compile_cache(d)
-    assert got == d
+
+def test_persistent_compile_cache_sets_config(tmp_path, monkeypatch,
+                                              restore_cache_dir):
+    """With JAX_COMPILATION_CACHE_DIR set, enable_persistent_compile_cache
+    points jax at exactly that dir and creates it; idempotent on repeat
+    calls."""
     import os
 
+    from stabletriton_jax.compile import enable_persistent_compile_cache
+
+    d = str(tmp_path / "xla-cache")
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", d)
+    got = enable_persistent_compile_cache()
+    assert got == d
     assert os.path.isdir(d)
     assert jax.config.jax_compilation_cache_dir == d
-    assert enable_persistent_compile_cache(d) == d
+    assert enable_persistent_compile_cache() == d
+
+
+def test_persistent_compile_cache_default_is_in_checkout(monkeypatch,
+                                                         restore_cache_dir):
+    """Without JAX_COMPILATION_CACHE_DIR the cache sits at one fixed path
+    inside the checkout — never under HOME, a temp name, a pid or a time."""
+    import os
+    import pathlib
+
+    from stabletriton_jax import compile as compile_mod
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    expected = str(repo / ".jax_cache")
+    assert compile_mod.compile_cache_dir() == expected
+    assert compile_mod.enable_persistent_compile_cache() == expected
+    assert jax.config.jax_compilation_cache_dir == expected
+    assert os.path.isdir(expected)
+    assert ".jax_cache/" in (repo / ".gitignore").read_text().split()

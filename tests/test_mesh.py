@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stabletriton_tpu.models.unet import init_unet_params, tiny_unet_config, unet_apply
-from stabletriton_tpu.runtime import mesh as mesh_mod
+from stabletriton_jax.models.unet import init_unet_params, tiny_unet_config, unet_apply
+from stabletriton_jax.runtime import mesh as mesh_mod
 
 
 @pytest.fixture(scope="module")
@@ -59,17 +59,15 @@ def test_param_sharding_fused_and_boundary_keys_replicate(mesh8):
 
 
 def test_txt2img_hlo_free_of_activation_allgathers(mesh8):
-    """The partitioning tripwire (VERDICT r3 weak #3): compile the whole
-    fused txt2img on dp4 x tp2 and assert no activation-sized all-gather
-    survives — a replicated pallas_call or a mis-specced param table would
-    insert (B, S, H*D) gathers inside the scan body."""
+    """The partitioning tripwire: compile the whole fused txt2img on
+    dp4 x tp2 and assert no activation-sized all-gather survives — an
+    unpartitionable op or a mis-specced param table would insert
+    (B, S, H*D) gathers inside the scan body."""
     import numpy as np
-    from stabletriton_tpu.compile import CompileConfig
-    from stabletriton_tpu.runtime.pipeline import _seed_vector, make_tiny_pipeline
+    from stabletriton_jax.compile import CompileConfig
+    from stabletriton_jax.runtime.pipeline import _seed_vector, make_tiny_pipeline
 
-    pipe = make_tiny_pipeline(
-        CompileConfig(backend="pallas", dtype="float32"), mesh=mesh8
-    )
+    pipe = make_tiny_pipeline(CompileConfig(dtype="float32"), mesh=mesh8)
     mp = pipe.clip_config.max_position_embeddings
     ids = jnp.asarray(np.full((4, mp), 5, np.int32))
     fn = pipe._txt2img_program(4, 32, 32, 2, 5.0, "euler", False, None, None)
@@ -77,7 +75,6 @@ def test_txt2img_hlo_free_of_activation_allgathers(mesh8):
     neg2 = jnp.asarray(pipe.clip2_config.empty_prompt_ids(4, mp))
     hlo = fn.lower(pipe.params, ids, ids, neg1, neg2,
                    _seed_vector(0, 4)).compile().as_text()
-    assert "shard_map" in hlo  # the mesh-aware attention path actually ran
     bad = mesh_mod.audit_hlo_collectives(hlo)
     assert not bad, bad[:5]
 
@@ -90,10 +87,10 @@ def test_sharded_pipeline_matches_unsharded(mesh8):
     and shards them column-parallel; the single-chip reference pipeline still
     fuses. Output parity across that layout difference is the point."""
     import numpy as np
-    from stabletriton_tpu.compile import CompileConfig
-    from stabletriton_tpu.runtime.pipeline import make_tiny_pipeline
+    from stabletriton_jax.compile import CompileConfig
+    from stabletriton_jax.runtime.pipeline import make_tiny_pipeline
 
-    ccfg = CompileConfig(backend="pallas", dtype="float32")
+    ccfg = CompileConfig(dtype="float32")
     ref = make_tiny_pipeline(ccfg)
     assert any(".to_qkv." in k for k in ref.params["unet"])  # single-chip fuses
     shp = make_tiny_pipeline(ccfg, mesh=mesh8)
@@ -133,34 +130,3 @@ def test_sharded_unet_matches_unsharded(mesh8):
     args = [jax.device_put(x, bs) for x in (sample, t, ehs, te, ti)]
     got = jax.jit(lambda p, *a: unet_apply(cfg, p, *a))(sp, *args)
     np.testing.assert_allclose(np.asarray(got), np.asarray(expected), atol=2e-4)
-
-
-def test_gn_conv2d_fused_sharded_matches_unsharded(mesh8):
-    """The fused-GN conv's shard_map path (kernels/conv_direct.gn_conv2d_fused)
-    with a per-batch (B, Cout) bias: GN scale/shift and the bias must shard
-    with the batch axis (a replicated spec would hand every shard row 0's
-    values — the bug test_sharded_pipeline caught for conv2d_direct)."""
-    from stabletriton_tpu import ops
-    from stabletriton_tpu.kernels import conv_direct  # register  # noqa: F401
-    from stabletriton_tpu.runtime import mesh as mm
-
-    rng = np.random.default_rng(7)
-    x = jnp.asarray(rng.standard_normal((4, 8, 8, 32), dtype=np.float32))
-    gamma = jnp.asarray(rng.standard_normal(32, dtype=np.float32))
-    beta = jnp.asarray(rng.standard_normal(32, dtype=np.float32))
-    w = jnp.asarray(rng.standard_normal((3, 3, 32, 16), dtype=np.float32) * 0.1)
-    b2 = jnp.asarray(rng.standard_normal((4, 16), dtype=np.float32))
-    res = jnp.asarray(rng.standard_normal((4, 8, 8, 16), dtype=np.float32))
-
-    expected = conv_direct.gn_conv2d_fused(x, gamma, beta, w, b2,
-                                           num_groups=8, residual=res)
-    with mm.use_mesh(mesh8):
-        got = jax.jit(lambda *a: conv_direct.gn_conv2d_fused(
-            *a, num_groups=8, residual=res))(x, gamma, beta, w, b2)
-        # the plain conv's shard path with per-batch bias, too
-        with ops.use_backends({"conv2d": "direct"}):
-            got_conv = jax.jit(lambda *a: ops.conv2d(*a))(x, w, b2)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(expected),
-                               atol=2e-4)
-    np.testing.assert_allclose(np.asarray(got_conv),
-                               np.asarray(ops.conv2d(x, w, b2)), atol=2e-4)

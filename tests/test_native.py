@@ -6,8 +6,8 @@ import zlib
 import numpy as np
 import pytest
 
-from stabletriton_tpu import native
-from stabletriton_tpu.io.tokenizer import CLIPTokenizer, PyCLIPTokenizer
+from stabletriton_jax import native
+from stabletriton_jax.io.tokenizer import CLIPTokenizer, PyCLIPTokenizer
 
 
 def test_native_lib_builds_and_loads():

@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from stabletriton_tpu import ops
-from stabletriton_tpu.ops.registry import registered_ops
+from stabletriton_jax import ops
+from stabletriton_jax.ops.registry import registered_ops
 
 
 def to_t(x):
@@ -150,7 +150,7 @@ def test_use_backends_binding():
         assert calls == ["probe"]
         assert np.all(np.asarray(out) == 0)
     finally:
-        from stabletriton_tpu.ops.registry import _REGISTRY
+        from stabletriton_jax.ops.registry import _REGISTRY
         _REGISTRY["geglu"].pop("probe", None)
 
 
@@ -160,7 +160,7 @@ def test_group_norm_onepass_matches_two_pass():
     import jax.numpy as jnp
     import numpy as np
 
-    from stabletriton_tpu.ops.reference import group_norm, group_norm_onepass
+    from stabletriton_jax.ops.reference import group_norm, group_norm_onepass
 
     rng = np.random.default_rng(0)
     x = jnp.asarray(rng.standard_normal((2, 8, 8, 64), dtype=np.float32) * 3 + 1)
@@ -183,7 +183,7 @@ def test_group_norm_bf16apply_close():
     import jax.numpy as jnp
     import numpy as np
 
-    from stabletriton_tpu.ops.reference import group_norm, group_norm_bf16apply
+    from stabletriton_jax.ops.reference import group_norm, group_norm_bf16apply
 
     rng = np.random.default_rng(5)
     x = jnp.asarray(rng.standard_normal((2, 8, 8, 64), dtype=np.float32) * 2
@@ -205,7 +205,7 @@ def test_layer_norm_bf16apply_close():
     import jax.numpy as jnp
     import numpy as np
 
-    from stabletriton_tpu.ops.reference import layer_norm, layer_norm_bf16apply
+    from stabletriton_jax.ops.reference import layer_norm, layer_norm_bf16apply
 
     rng = np.random.default_rng(6)
     xf_np = rng.standard_normal((2, 64, 96), dtype=np.float32) * 2
@@ -233,7 +233,7 @@ def test_barrier_variants_identical():
     import jax.numpy as jnp
     import numpy as np
 
-    from stabletriton_tpu.ops.reference import (
+    from stabletriton_jax.ops.reference import (
         group_norm_barrier,
         group_norm_onepass,
         layer_norm,

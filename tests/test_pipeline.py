@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stabletriton_tpu.models import clip as clip_mod
-from stabletriton_tpu.models import vae as vae_mod
-from stabletriton_tpu.runtime.pipeline import make_tiny_pipeline
+from stabletriton_jax.models import clip as clip_mod
+from stabletriton_jax.models import vae as vae_mod
+from stabletriton_jax.runtime.pipeline import make_tiny_pipeline
 
 
 @pytest.fixture(scope="module")
@@ -131,7 +131,7 @@ def test_txt2img_rejects_bad_resolution(pipe):
 def test_long_prompt_chunking(pipe):
     """ids wider than max_position_embeddings encode as 77-token windows and
     the UNet cross-attends over the full concatenated sequence."""
-    from stabletriton_tpu.models import clip as clip_mod
+    from stabletriton_jax.models import clip as clip_mod
 
     mp = pipe.clip_config.max_position_embeddings
     ids = np.full((1, mp * 2), 5, np.int32)
@@ -156,7 +156,7 @@ def test_long_prompt_chunking(pipe):
 def test_empty_prompt_ids_structure():
     """Default negative prompt == tokenization of "" (BOS, EOS, pad), per
     77-token window, honoring each encoder's pad convention."""
-    from stabletriton_tpu.models import clip as clip_mod
+    from stabletriton_jax.models import clip as clip_mod
 
     c1 = clip_mod.sdxl_text_encoder_config()
     ids = c1.empty_prompt_ids(2, 154)

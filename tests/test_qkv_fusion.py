@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from stabletriton_tpu.compile import CompileConfig, compile_unet, fuse_attention_projections
-from stabletriton_tpu.models.unet import init_unet_params, tiny_unet_config, unet_apply
+from stabletriton_jax.compile import CompileConfig, compile_unet, fuse_attention_projections
+from stabletriton_jax.models.unet import init_unet_params, tiny_unet_config, unet_apply
 
 
 def test_fused_projections_exact_parity():
@@ -36,9 +36,9 @@ def test_fused_projections_exact_parity():
 
 
 def test_pipeline_applies_fusion_for_optimized_backend():
-    from stabletriton_tpu.runtime.pipeline import make_tiny_pipeline
+    from stabletriton_jax.runtime.pipeline import make_tiny_pipeline
 
-    pipe = make_tiny_pipeline(CompileConfig(backend="pallas", dtype="float32"))
+    pipe = make_tiny_pipeline(CompileConfig(dtype="float32"))
     assert any(k.endswith(".to_qkv.weight") for k in pipe.params["unet"])
     ref_pipe = make_tiny_pipeline(CompileConfig(backend="reference", dtype="float32"))
     assert not any(k.endswith(".to_qkv.weight") for k in ref_pipe.params["unet"])

@@ -4,12 +4,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stabletriton_tpu.models.unet import (
+from stabletriton_jax.models.unet import (
     init_unet_params,
     sdxl_refiner_unet_config,
     unet_param_shapes,
 )
-from stabletriton_tpu.runtime.pipeline import (
+from stabletriton_jax.runtime.pipeline import (
     TwoStageSDXL,
     make_tiny_pipeline,
     make_tiny_refiner_pipeline,
@@ -69,8 +69,8 @@ def test_two_stage_pipeline():
 
 
 def test_img2img_from_image():
-    from stabletriton_tpu.models import vae as vae_mod
-    from stabletriton_tpu.runtime.pipeline import make_tiny_pipeline
+    from stabletriton_jax.models import vae as vae_mod
+    from stabletriton_jax.runtime.pipeline import make_tiny_pipeline
 
     pipe = make_tiny_pipeline()
     vae = dict(pipe.params["vae"])
@@ -85,7 +85,7 @@ def test_img2img_from_image():
 
 
 def test_img2img_image_requires_encoder():
-    from stabletriton_tpu.runtime.pipeline import make_tiny_pipeline
+    from stabletriton_jax.runtime.pipeline import make_tiny_pipeline
     import pytest as _pytest
 
     pipe = make_tiny_pipeline()

@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stabletriton_tpu.runtime import scheduler as sched
-from stabletriton_tpu.runtime.denoise import make_denoise_loop
+from stabletriton_jax.runtime import scheduler as sched
+from stabletriton_jax.runtime.denoise import make_denoise_loop
 
 
 def test_schedule_shapes_and_monotonicity():
@@ -274,8 +274,8 @@ def test_denoise_loop_euler_a():
 def test_pipeline_euler_a_txt2img():
     """Tiny end-to-end txt2img with the ancestral solver: runs, finite,
     deterministic per seed, and seed-sensitive."""
-    from stabletriton_tpu.compile import CompileConfig
-    from stabletriton_tpu.runtime.pipeline import make_tiny_pipeline
+    from stabletriton_jax.compile import CompileConfig
+    from stabletriton_jax.runtime.pipeline import make_tiny_pipeline
 
     pipe = make_tiny_pipeline(CompileConfig(backend="reference", dtype="float32"))
     ids = jnp.zeros((1, 16), jnp.int32)

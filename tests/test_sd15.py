@@ -3,14 +3,14 @@
 import jax.numpy as jnp
 import numpy as np
 
-from stabletriton_tpu.models.unet import (
+from stabletriton_jax.models.unet import (
     init_unet_params,
     sd15_unet_config,
     sd21_unet_config,
     unet_apply,
     unet_param_shapes,
 )
-from stabletriton_tpu.runtime.pipeline import make_tiny_sd15_pipeline
+from stabletriton_jax.runtime.pipeline import make_tiny_sd15_pipeline
 
 
 def test_sd15_param_inventory():
@@ -83,7 +83,7 @@ def test_sd15_pipeline_img2img():
 
 
 def test_sd15_config_from_diffusers_dict():
-    from stabletriton_tpu.io.torch_ingest import unet_config_from_diffusers
+    from stabletriton_jax.io.torch_ingest import unet_config_from_diffusers
 
     # the relevant subset of runwayml/stable-diffusion-v1-5 unet/config.json
     cfg = unet_config_from_diffusers({

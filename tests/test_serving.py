@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from stabletriton_tpu.runtime.pipeline import make_tiny_pipeline
-from stabletriton_tpu.runtime.serving import Request, ServingEngine, _bucket
+from stabletriton_jax.runtime.pipeline import make_tiny_pipeline
+from stabletriton_jax.runtime.serving import Request, ServingEngine, _bucket
 
 
 class IdentityTok:
@@ -94,7 +94,7 @@ def test_meshed_engine_rejects_incompatible_max_batch():
     import jax
     import pytest
 
-    from stabletriton_tpu.runtime import mesh as mesh_mod
+    from stabletriton_jax.runtime import mesh as mesh_mod
 
     mesh = mesh_mod.make_mesh(data=4, model=2, devices=jax.devices()[:8])
     pipe = make_tiny_pipeline(mesh=mesh)
@@ -107,7 +107,7 @@ def test_meshed_engine_buckets_and_serves():
     multiples of the data axis so batches shard evenly across ICI."""
     import jax
 
-    from stabletriton_tpu.runtime import mesh as mesh_mod
+    from stabletriton_jax.runtime import mesh as mesh_mod
 
     mesh = mesh_mod.make_mesh(data=4, model=2, devices=jax.devices()[:8])
     pipe = make_tiny_pipeline(mesh=mesh)

@@ -9,11 +9,11 @@ the models' exact shape tables.
 import numpy as np
 import pytest
 
-from stabletriton_tpu.io import single_file as sf
-from stabletriton_tpu.io.safetensors_io import validate_against_shapes
-from stabletriton_tpu.models.clip import clip_param_shapes, sdxl_text_encoder_2_config
-from stabletriton_tpu.models.unet import sdxl_base_unet_config, unet_param_shapes
-from stabletriton_tpu.models.vae import sdxl_vae_config, vae_decoder_param_shapes
+from stabletriton_jax.io import single_file as sf
+from stabletriton_jax.io.safetensors_io import validate_against_shapes
+from stabletriton_jax.models.clip import clip_param_shapes, sdxl_text_encoder_2_config
+from stabletriton_jax.models.unet import sdxl_base_unet_config, unet_param_shapes
+from stabletriton_jax.models.vae import sdxl_vae_config, vae_decoder_param_shapes
 
 
 def test_unet_literal_name_pairs():
@@ -89,7 +89,7 @@ def test_unet_full_synthetic_roundtrip():
         sgm_sd[sgm_name] = np.zeros(_torch_layout(name, shape), np.float32)
 
     converted = sf.convert_sgm_unet(sgm_sd, cfg)
-    from stabletriton_tpu.io.safetensors_io import convert_state_dict
+    from stabletriton_jax.io.safetensors_io import convert_state_dict
 
     params = convert_state_dict(converted)
     validate_against_shapes(params, expected)
@@ -143,7 +143,7 @@ def test_vae_decoder_synthetic_roundtrip():
         sgm_sd[sgm_name] = np.zeros(t_shape, np.float32)
 
     converted = sf.convert_sgm_vae_decoder(sgm_sd)
-    from stabletriton_tpu.io.safetensors_io import convert_state_dict
+    from stabletriton_jax.io.safetensors_io import convert_state_dict
 
     params = convert_state_dict(converted)
     validate_against_shapes(params, expected)
@@ -175,7 +175,7 @@ def test_openclip_conversion():
         sd[f"{pre}.mlp.c_proj.bias"] = np.zeros((d,), np.float32)
 
     converted = sf.convert_openclip_text(sd)
-    from stabletriton_tpu.io.safetensors_io import convert_state_dict
+    from stabletriton_jax.io.safetensors_io import convert_state_dict
 
     params = convert_state_dict(converted)
     # resolve the pretransposed marker like load_single_file does
@@ -210,7 +210,7 @@ def test_detect_family():
 
 def test_sd15_unet_synthetic_single_file_roundtrip():
     """SGM-named SD1.5 UNet tensors convert to the exact SD1.5 shape table."""
-    from stabletriton_tpu.models.unet import sd15_unet_config
+    from stabletriton_jax.models.unet import sd15_unet_config
 
     cfg = sd15_unet_config()
     expected = unet_param_shapes(cfg)
@@ -234,6 +234,6 @@ def test_sd15_unet_synthetic_single_file_roundtrip():
         sgm_sd[sgm_name] = np.zeros(_torch_layout(name, shape), np.float32)
 
     converted = sf.convert_sgm_unet(sgm_sd, cfg)
-    from stabletriton_tpu.io.safetensors_io import convert_state_dict
+    from stabletriton_jax.io.safetensors_io import convert_state_dict
 
     validate_against_shapes(convert_state_dict(converted), expected)

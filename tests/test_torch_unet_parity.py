@@ -41,8 +41,8 @@ def test_sdxl_unet_matches_reference_torch_oracle():
     spec.loader.exec_module(mod)
     UNet2DConditionModel = mod.UNet2DConditionModel
 
-    from stabletriton_tpu.io.torch_ingest import state_dict_to_params
-    from stabletriton_tpu.models.unet import sdxl_base_unet_config, unet_apply
+    from stabletriton_jax.io.torch_ingest import state_dict_to_params
+    from stabletriton_jax.models.unet import sdxl_base_unet_config, unet_apply
 
     torch.manual_seed(0)
     with torch.no_grad():
@@ -61,8 +61,8 @@ def test_sdxl_unet_matches_reference_torch_oracle():
     cfg = sdxl_base_unet_config()
 
     # ingestion must cover the model's exact shape table (both directions)
-    from stabletriton_tpu.io.safetensors_io import validate_against_shapes
-    from stabletriton_tpu.models.unet import unet_param_shapes
+    from stabletriton_jax.io.safetensors_io import validate_against_shapes
+    from stabletriton_jax.models.unet import unet_param_shapes
 
     validate_against_shapes(
         {k: np.asarray(v) for k, v in params.items()}, unet_param_shapes(cfg)

@@ -22,10 +22,10 @@ from torch import nn  # noqa: E402
 
 import jax.numpy as jnp  # noqa: E402
 
-from stabletriton_tpu import ops  # noqa: E402
-from stabletriton_tpu.io.safetensors_io import validate_against_shapes  # noqa: E402
-from stabletriton_tpu.io.torch_ingest import state_dict_to_params  # noqa: E402
-from stabletriton_tpu.models.vae import (  # noqa: E402
+from stabletriton_jax import ops  # noqa: E402
+from stabletriton_jax.io.safetensors_io import validate_against_shapes  # noqa: E402
+from stabletriton_jax.io.torch_ingest import state_dict_to_params  # noqa: E402
+from stabletriton_jax.models.vae import (  # noqa: E402
     tiny_vae_config,
     vae_decode,
     vae_decoder_param_shapes,
@@ -249,10 +249,9 @@ def test_vae_decoder_matches_torch_oracle(oracle_and_params):
     np.testing.assert_allclose(
         np.asarray(got).transpose(0, 3, 1, 2), want.numpy(), atol=1e-4
     )
-    # and through the pallas attention binding (interpret mode on CPU)
-    import stabletriton_tpu.kernels  # noqa: F401  (registers "pallas")
-
-    with ops.use_backends({"attention": "pallas"}):
+    # and through the GPU attention binding (the fp32 decoder keeps its
+    # XLA path there)
+    with ops.use_backends({"attention": "cudnn"}):
         got_p = vae_decode(cfg, dec, jnp.asarray(lat.transpose(0, 2, 3, 1)))
     np.testing.assert_allclose(
         np.asarray(got_p).transpose(0, 3, 1, 2), want.numpy(), atol=1e-3

@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stabletriton_tpu.compile import CompileConfig, compile_unet
-from stabletriton_tpu.models.unet import (
+from stabletriton_jax.compile import CompileConfig, compile_unet
+from stabletriton_jax.models.unet import (
     UNetConfig,
     init_unet_params,
     sdxl_base_unet_config,

@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from stabletriton_tpu.models import vae as vae_mod
+from stabletriton_jax.models import vae as vae_mod
 
 
 def test_encoder_shapes_and_roundtrip():
